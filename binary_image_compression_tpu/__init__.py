@@ -1,10 +1,10 @@
-"""binary_image_compression_tpu — a TPU-native lossless binary-image compression framework.
+"""binary_image_compression_tpu — a lossless binary-image compression framework in JAX.
 
-A from-scratch re-design (JAX / XLA / Pallas / pjit) of the capabilities of the
+A from-scratch re-design (JAX / XLA / shard_map) of the capabilities of the
 reference C++ research codebase ``nacho-pancho/binary-image-compression``:
 
 * bit-packed boolean matrix algebra        -> :mod:`.ops.bitpack` (uint32 lanes,
-  popcount/parity via ``lax``, GF(2) matmuls on the MXU)
+  popcount/parity via ``lax``, GF(2) matmuls)
 * PBM / PGM / PPM image I/O + bitplanes    -> :mod:`.utils.pnm`, :mod:`.utils.bitplanes`
 * causal binary prediction (MED / GF(2))   -> :mod:`.ops.predict`
 * Golomb / exp-Golomb / enumerative coding -> :mod:`.ops.entropy`

@@ -29,7 +29,7 @@ def _add_codec_opts(p):
                    help="1 full-prior-area, 2/3 dict, 4/6/7/8 windowed, "
                         "10 med+rle, 11 bsvd, "
                         "12 cabic/arithmetic, 13 scab striped-arithmetic — "
-                        "best ratio, parallel decode, TPU context stage "
+                        "best ratio, parallel decode, device context stage "
                         "(default 8)")
     p.add_argument("-W", type=int, default=16, help="tile width")
     p.add_argument("-T", type=int, default=None, help="early-exit threshold")
@@ -42,7 +42,7 @@ def _add_codec_opts(p):
     p.add_argument("--entropy", choices=["host", "device"], default="host",
                    help="codec 13 only: host = adaptive range coder "
                         "(best ratio on small pages), device = static-table "
-                        "interleaved rANS assembled entirely on the TPU "
+                        "interleaved rANS assembled entirely on device "
                         "(payload mode 2; wins on doc-class pages)")
     p.add_argument("--shard", choices=["none", "tiles"], default="none",
                    help="tiles: shard ONE image's tile grid over all "
@@ -82,7 +82,6 @@ def cmd_compress(args):
         raw = gray.size * (2 if maxval > 255 else 1)
     else:
         img = pnm.read_pbm(args.input)
-        from .ops import pallas_strict
         if getattr(args, "shard", "none") == "tiles":
             if not (args.codec in (4, 7, 8) and args.mode == "causal"):
                 sys.exit("--shard tiles requires a windowed codec (4/7/8) "
@@ -93,12 +92,6 @@ def cmd_compress(args):
             m = pmesh.make_mesh(len(jax.devices()), data=len(jax.devices()),
                                 model=1)
             blob = tileshard.encode_tile_sharded(m, img, params)
-        elif args.codec == 8 and args.mode == "strict" \
-                and args.backend in ("auto", "tpu") \
-                and pallas_strict.supported(args.W, args.R):
-            # the strict residual-substitution chain runs as one Pallas
-            # kernel with the working plane resident in VMEM
-            blob = compress.encode_strict(img, params)
         elif args.codec == 8 and args.mode == "causal" \
                 and args.backend in ("auto", "tpu"):
             prof = None
@@ -204,7 +197,7 @@ def cmd_bsvd(args):
         X = bsvd.patchify_to_rows(img, args.w) if args.I else \
             np.asarray(img, dtype=np.int8)
         # reference mi catalog order (bsvd.cpp:25-31); 3 (xor centroids) has
-        # no TPU twin and falls back to the majority-vote centroids
+        # no device twin and falls back to the majority-vote centroids
         init = {0: "neighbor", 1: "partition", 2: "random_centroids",
                 3: "random_centroids", 4: "graph_grow"}.get(args.i,
                                                             "neighbor")
@@ -434,6 +427,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_info)
 
     args = ap.parse_args(argv)
+    from .utils import compile_cache
+    compile_cache.enable()
     args.fn(args)
 
 

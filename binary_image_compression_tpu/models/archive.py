@@ -4,7 +4,7 @@ Layout:  "BICA" | u32 n_pages | u64 offsets[n_pages] (byte offset of each
 page blob from payload start) | page blobs (each a standalone BIC1 stream).
 
 `encode_pages` is THE batched page engine: same-shaped pages batch through
-the vmapped device analysis (models/compress.encode_batch); it is shared by
+the device analysis (models/compress.encode_batch); it is shared by
 the single-host archive writer below and the multi-host shard encoder
 (parallel/multihost.encode_corpus_sharded), so the 2-process test exercises
 the same code path as the archive bench.
@@ -174,8 +174,8 @@ def page_count(blob: bytes) -> int:
     return struct.unpack("<I", blob[4:8])[0]
 
 
-def decode_page(blob: bytes, index: int) -> np.ndarray:
-    """Random-access decode of one page."""
+def page_stream(blob: bytes, index: int) -> bytes:
+    """The standalone BIC1 stream of one page."""
     n = page_count(blob)
     if not 0 <= index < n:
         raise IndexError(index)
@@ -183,7 +183,12 @@ def decode_page(blob: bytes, index: int) -> np.ndarray:
     payload = 8 + 8 * n
     start = payload + int(offs[index])
     end = payload + int(offs[index + 1]) if index + 1 < n else len(blob)
-    return codec_mod.decode(blob[start:end])
+    return blob[start:end]
+
+
+def decode_page(blob: bytes, index: int) -> np.ndarray:
+    """Random-access decode of one page."""
+    return codec_mod.decode(page_stream(blob, index))
 
 
 def decode_archive(blob: bytes, *, workers: int | None = None

@@ -1,25 +1,25 @@
-"""TPU-native binary dictionary learning (BSVD) — the GF(2) K-SVD analog.
+"""Device binary dictionary learning (BSVD) — the GF(2) K-SVD analog.
 
 Model (reference bsvd.h:31-37): X (N x M patch rows) ~ A (N x K coefs) *
 D (K x M atoms) over GF(2), E = X ^ A*D, minimizing |E| (Hamming) or an MDL
-codelength.  This module is the TPU re-design, NOT a port:
+codelength.  This module is the device re-design, NOT a port:
 
 * the reference's per-sample greedy pursuit (update_coefficients_omp,
   bsvd.cpp:1029-1107: OMP parallel-for over samples, inner while-improved
-  scan over atoms with copy_row_to/dist/bool_and) becomes a *batched* MXU
+  scan over atoms with copy_row_to/dist/bool_and) becomes a *batched*
   matmul: all N x K candidate distances at once via
   d = |Ei| + |Dk| - 2 <Ei, Dk>, one flip per sample per sweep inside
   lax.while_loop with convergence flags (SURVEY.md §7 hard part (c));
 * the majority-vote dictionary updates (update_dictionary_steepest,
   bsvd.cpp:463-527; proximus, bsvd.cpp:530-735) become masked counts via
   matmuls: weights = A[:,k]^T (E ^ Dk) summed over users — a [1,N]x[N,M]
-  product on the MXU, scanned over atoms (the reference's sequential
+  product, scanned over atoms (the reference's sequential
   per-atom residual fixup is semantically load-bearing and kept);
 * learning loops (traditional / alter1-3, bsvd.cpp:1215-1434) are thin
   drivers; MDL selection (bsvd.cpp:1438-1717) reuses
   entropy.universal_codelength.
 
-State is dense int8 0/1 on device (MXU-friendly); conversion helpers go to
+State is dense int8 0/1 on device (matmul-friendly); conversion helpers go to
 and from the packed uint32 layout.  Exact reference-replay parity (rand48
 init, identical update order) lives in models/bsvd_ref.py; this module
 targets throughput and multi-chip sharding (parallel/mesh.py: samples on the
@@ -43,21 +43,10 @@ def _f32(x):
     return x.astype(jnp.float32)
 
 
-def distances_to_atoms(E, D, impl: str = "mxu"):
-    """d[i, k] = |E_i ^ D_k| for dense 0/1 rows.
-
-    impl="mxu" (default): one f32 matmul (the batched form of the
-    reference's hot loop #1, bsvd.cpp:1065-1094).  impl="packed": pack to
-    uint32 lanes and run the Pallas XOR+popcount kernel
-    (ops/pallas_kernels.packed_dist_matrix) — 32x less memory traffic; wins
-    for wide rows (M >= ~1024), loses to the MXU for small M (see
-    scripts/bench_bsvd.py)."""
-    if impl == "packed" and E.shape[1] <= 64 * 32:
-        # wider rows exceed the packed kernel's VMEM scope; use the MXU
-        from ..ops import bitpack, pallas_kernels
-        Ep = bitpack.pack(E.astype(jnp.bool_))
-        Dp = bitpack.pack(D.astype(jnp.bool_))
-        return pallas_kernels.packed_dist_matrix(Ep, Dp).astype(jnp.float32)
+def distances_to_atoms(E, D):
+    """d[i, k] = |E_i ^ D_k| for dense 0/1 rows: one f32 matmul (the
+    batched form of the reference's hot loop #1, bsvd.cpp:1065-1094).
+    Exact in TF32 too: the operands are 0/1 and every sum is below 2^24."""
     we = E.sum(axis=1, dtype=jnp.float32)
     wd = D.sum(axis=1, dtype=jnp.float32)
     cross = jnp.dot(_f32(E), _f32(D).T, preferred_element_type=jnp.float32)
@@ -98,7 +87,7 @@ def update_coefficients(E, D, A, max_flips: int | None = None,
 
     def sweep(state):
         E, A, active, it, changed = state
-        d = distances_to_atoms(E, D, impl=distances)   # [N, K]
+        d = distances_to_atoms(E, D)                   # [N, K]
         w = E.sum(axis=1, dtype=jnp.float32)  # current residual weights
         bestk = jnp.argmin(d, axis=1)
         bestd = jnp.take_along_axis(d, bestk[:, None], axis=1)[:, 0]
@@ -179,7 +168,7 @@ def update_dictionary_steepest(E, D, A):
     Reference semantics (bsvd.cpp:463-527): per atom k over its users
     U = {i : A[i,k]}, weights_j = sum_U (E_i ^ Dk)_j, new Dk_j =
     weights_j > |U|/2; E is fixed up before the next atom.  The inner counts
-    ride the MXU ([1,N] x [N,M]); the atom loop is a lax.scan carry on E/D."""
+    are matmuls ([1,N] x [N,M]); the atom loop is a lax.scan carry on E/D."""
     N, M = E.shape
     K = D.shape[0]
 
@@ -356,7 +345,7 @@ def _graph_grow_from_seeds(X, seed_idx, K):
 
 
 def initialize_graph_grow(key, X, K, seed_idx=None):
-    """Support-graph growing init (bsvd.cpp:286-383), TPU formulation.
+    """Support-graph growing init (bsvd.cpp:286-383), device formulation.
 
     seed_idx overrides the K random seed rows (the conformance tests inject
     the reference's rand48 draws to get bit-equal centroids)."""
@@ -384,7 +373,7 @@ class LearnConfig:
 
 
 def residual(X, D, A):
-    """E = X ^ (A*D mod 2) via the MXU."""
+    """E = X ^ (A*D mod 2) via a count matmul."""
     prod = jnp.dot(_f32(A), _f32(D), preferred_element_type=jnp.float32)
     return X ^ jnp.mod(prod, 2.0).astype(X.dtype)
 

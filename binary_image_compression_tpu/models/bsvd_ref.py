@@ -3,7 +3,7 @@
 Reproduces the reference's dictionary learning bit-for-bit — same rand48
 stream (utils/rand48.py == GSL gsl_rng_rand48), same update order, same
 integer thresholds — validated against goldens (learned D/A/E PBM digests
-and final |E|, scripts/gen_goldens.py).  The TPU fast path is
+and final |E|, scripts/gen_goldens.py).  The device fast path is
 models/bsvd.py; this module is the conformance layer and the drop-in for
 users who need the reference's exact outputs.
 

@@ -650,7 +650,7 @@ def _medrle_runs(img: np.ndarray, residual: np.ndarray | None = None
 def _encode_medrle(img: np.ndarray,
                    residual: np.ndarray | None = None) -> bytes:
     """MED + adaptive run-length (codec 10).  The MED residual is vectorized
-    numpy (or device-computed and passed in by the TPU bitplane pipeline,
+    numpy (or device-computed and passed in by the device bitplane pipeline,
     compress.encode_pgm_tpu); the run loop is native C++ with a Python
     fallback."""
     rows, cols = img.shape
@@ -1002,8 +1002,7 @@ def scab_defaults(params: CodecParams, rows: int) -> tuple[int, int]:
     template when it is 10 or 12 (default 12 — two extra causal neighbors,
     px(r-1,c+3) and px(r,c-3)); params.T the stripe count (0 = auto: one
     stripe per 128 rows, clamped to [1, 16] — 15,097 B on doc512 vs codec
-    12's 16,181 B, with encode and decode each > 100 MP/s on 2 host
-    threads)."""
+    12's 16,181 B)."""
     tmpl = params.W if params.W in (10, 12) else 12
     n_stripes = params.T if params.T else max(1, min(16, rows // 128))
     return tmpl, min(n_stripes, rows)
@@ -1038,7 +1037,7 @@ def _encode_scab(img, params, ctx_pre=None) -> bytes:
     hardware.  Horizontal stripes are INDEPENDENT arithmetic streams
     (template reads above the stripe top are 0, models start fresh), so
     encode/decode parallelize across host threads and the per-pixel context
-    ids can be computed on the TPU for the whole page
+    ids can be computed on device for the whole page
     (models/compress.encode_scab); count-ramped adaptation warms each
     stripe's model in tens of pixels.  Native C++ with a Python twin.
 

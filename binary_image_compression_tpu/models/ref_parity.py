@@ -5,7 +5,7 @@ These reproduce the reference drivers' *observable outputs* — per-tile search
 results (besti, bestj, bestd[, inv]), mode decisions, Golomb bitcounts and
 total codelengths — bit-for-bit against goldens generated from the compiled
 reference (scripts/gen_goldens.py).  They are the conformance layer; the
-TPU-accelerated product codecs live in models/compress.py and are tested
+Device-accelerated product codecs live in models/compress.py and are tested
 against these oracles (and directly against goldens where semantics match).
 
 Reference UB is pinned to the shim build's deterministic behaviour

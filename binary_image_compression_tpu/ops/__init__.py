@@ -3,4 +3,4 @@ from . import predict  # noqa: F401
 from . import entropy  # noqa: F401
 from . import bitstream  # noqa: F401
 from . import search  # noqa: F401
-from . import pallas_kernels  # noqa: F401
+from . import fused_search  # noqa: F401

@@ -1,14 +1,14 @@
-"""Bit-packed boolean matrix algebra over uint32 lanes (TPU-native binmat).
+"""Bit-packed boolean matrix algebra over uint32 lanes (device binmat).
 
-This is the TPU re-design of the reference's ``binary_matrix`` core
+This is the device re-design of the reference's ``binary_matrix`` core
 (reference: binmat.h:29-234, binmat.cpp) — NOT a port.  Matrices are
 ``uint32[..., rows, ceil(cols/32)]`` arrays, MSB-first within each word so a
 packed row is byte-compatible with PBM P4 raster lines (reference bit order:
-binmat.h:17 ``MSB = 1 << 63``; we use 32-bit lanes, the TPU's native word).
+binmat.h:17 ``MSB = 1 << 63``; we use 32-bit lanes, the accelerator's native word).
 
 All ops are pure functions, jit-friendly, and support arbitrary leading batch
 dimensions.  Reductions use ``lax.population_count`` (the VPU popcount); GF(2)
-matrix products ride the MXU as 0/1 float matmuls reduced mod 2
+matrix products are 0/1 float matmuls reduced mod 2
 (reference: binmat.cpp:516-616 ``mul_AB/AtB/ABt`` — and we also implement
 ``mul_AtBt``, which is an empty stub at binmat.cpp:596).
 
@@ -152,7 +152,7 @@ def dist(a, b) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# GF(2) matrix products on the MXU (reference: binmat.cpp:516-616)
+# GF(2) matrix products as count matmuls (reference: binmat.cpp:516-616)
 # ---------------------------------------------------------------------------
 
 def _dense(packed, cols: int, dtype=jnp.float32):
@@ -160,10 +160,11 @@ def _dense(packed, cols: int, dtype=jnp.float32):
 
 
 def _parity_matmul(a_dense, b_dense):
-    """(a @ b) mod 2 with the count matmul on the MXU.
+    """(a @ b) mod 2 with the count as an f32 matmul.
 
     float32 accumulation is exact for inner dimensions < 2**24; assert is on
-    the caller.  preferred_element_type pins MXU accumulation to f32.
+    the caller.  preferred_element_type pins accumulation to f32; with 0/1 operands
+    the counts are exact in TF32 too while they stay below 2^24.
     """
     counts = jnp.dot(a_dense, b_dense, preferred_element_type=jnp.float32)
     return jnp.mod(counts, 2.0).astype(jnp.bool_)
@@ -192,7 +193,7 @@ def mul(a, a_cols: int, at: bool, b, b_cols: int, bt: bool) -> jnp.ndarray:
 def and_counts(a, b, cols: int) -> jnp.ndarray:
     """Integer inner products <Ai, Bj> over AND: counts[i, j] = |Ai & Bj|.
 
-    The MXU formulation of the reference's XOR/popcount 'binary matmul' shape
+    The matmul formulation of the reference's XOR/popcount 'binary matmul' shape
     (mul_ABt, binmat.cpp:575).  a: [n, w], b: [m, w] packed -> int32 [n, m].
     """
     ad = _dense(a, cols)
@@ -201,7 +202,7 @@ def and_counts(a, b, cols: int) -> jnp.ndarray:
 
 
 def dist_matrix(a, b, cols: int) -> jnp.ndarray:
-    """All-pairs Hamming distances d[i,j] = |Ai ^ Bj| via the MXU.
+    """All-pairs Hamming distances d[i,j] = |Ai ^ Bj| via a matmul.
 
     d = |Ai| + |Bj| - 2 <Ai, Bj>.  This is the batched form of the reference's
     per-pair ``dist`` hot loop (e.g. compress8_test.cpp:152-198,

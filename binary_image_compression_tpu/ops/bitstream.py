@@ -12,7 +12,7 @@ exist; eg.cpp:39-56 is #if 0).  This module supplies:
   combinatorial number system: a weight-w pattern over n positions is coded
   as its lexicographic rank in ceil(log2 C(n, w)) bits — the integer-bit
   realisation of the reference's enumL estimate (compress8_test.cpp:25-28).
-* ``pack_varlen`` — the TPU-parallel path: per-symbol (value, length) pairs
+* ``pack_varlen`` — the device-parallel path: per-symbol (value, length) pairs
   -> exclusive prefix-sum of bit offsets -> scatter into uint32 lanes; this
   is the parallel-prefix bitstream assembly named in BASELINE.json.
 """
@@ -192,7 +192,7 @@ def enum_decode(r: BitReader, n: int, weight: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# TPU-parallel variable-length packing (prefix-sum offset assembly)
+# device-parallel variable-length packing (prefix-sum offset assembly)
 # ---------------------------------------------------------------------------
 
 def pack_varlen(values: jnp.ndarray, lengths: jnp.ndarray,

@@ -90,7 +90,7 @@ def _compose_bitplane(a, b):
     """Gather-free _compose: tables are 32 entries of 5-bit states, so each
     of b's 5 state bits packs into ONE uint32 word (bit s = bit of b[s]) and
     b[a[s]] becomes a lane-wise variable shift — elementwise ops only, no
-    take_along_axis (TPU gathers serialize; shifts ride the VPU)."""
+    take_along_axis."""
     s_iota = jnp.arange(32, dtype=jnp.uint32)
     av = a.astype(jnp.uint32)
     bv = b.astype(jnp.uint32)
@@ -135,10 +135,8 @@ def eg_encode_runs_device(runs, n_runs, *, n_pixels: int):
                       jnp.int32(0)).astype(jnp.uint8)
     exit_s = exit_s.at[0].set(jnp.broadcast_to(exit0, (32,)))
     # entry state of run i = composition of transitions 0..i-1 from state 0.
-    # _compose_bitplane, not the take_along_axis _compose: TPU gathers
-    # serialize, and the scan's log2(N) composition levels made the gather
-    # form 94% of the whole codec-10 device pipeline (measured 240.9 ms ->
-    # 42.3 ms for the 8-plane 512^2 stack when switched; ARCHITECTURE.md)
+    # _compose_bitplane, not the take_along_axis _compose: the scan's
+    # log2(N) composition levels stay elementwise
     chain = lax.associative_scan(_compose_bitplane, exit_s, axis=0)
     entry = jnp.concatenate([jnp.ones((1,), jnp.uint8),  # run 0: state 1
                              chain[:-1, 0]]).astype(jnp.int32)

@@ -1,4 +1,4 @@
-"""Device (TPU) entropy coding for codec 13: static-table interleaved rANS.
+"""Device entropy coding for codec 13: static-table interleaved rANS.
 
 The host codec-13 coder adapts a 16-bit probability per context per bit — a
 serial chain with a 2^16-state coder per context that no cheap scan
@@ -117,9 +117,7 @@ def _onehot64(v):
 def count_contexts(ctx_flat, bits_flat, mask=None):
     """ones[4096], total[4096] per-context bit counts.
 
-    TPU scatter-adds serialize (~14 ns/update: the 262144-update histogram
-    alone measured 3.7 ms/page on chip), so the histogram rides the MXU
-    instead: split the 12-bit context into 6-bit halves h/l, then
+    The histogram is a contraction instead of a scatter-add: split the 12-bit context into 6-bit halves h/l, then
     count[h, l] = onehot(h)^T @ onehot(l) — two [64, N] x [N, 64]
     contractions.  Products are 0/1 (exact in bf16) and sums < 2^24, with
     f32 accumulation, so the counts are integer-exact."""
@@ -145,7 +143,7 @@ def count_contexts(ctx_flat, bits_flat, mask=None):
 
 def table_lookup(table, ctx):
     """values = table[ctx] for a 4096-entry uint32 table (entries < 4096)
-    without a hardware gather: two-level one-hot MXU contraction with the
+    without a hardware gather: two-level one-hot contraction with the
     table split into 6-bit halves (values <= 63 are exact in bf16; one
     nonzero term per row keeps sums exact in f32)."""
     ctx = jnp.asarray(ctx, jnp.int32).ravel()
@@ -246,7 +244,7 @@ def rans_page_encode(img_u8, ctx_u16, *, n_stripes: int, stripe_rows: int,
     ones, total = count_contexts(ctx, img)
     q, transmit, q_def, p_used = build_table(ones, total)
 
-    # per-pixel (f, b): bit==1 -> (p1, f0); bit==0 -> (f0, 0).  MXU
+    # per-pixel (f, b): bit==1 -> (p1, f0); bit==0 -> (f0, 0).
     # one-hot lookup, not a hardware gather (table_lookup docstring)
     p1 = table_lookup(p_used, ctx).reshape(ctx.shape)
     f0 = PSCALE - p1

@@ -1,14 +1,14 @@
-"""Windowed self-referential patch matching on the MXU.
+"""Windowed self-referential patch matching as convolutions and matmuls.
 
 The reference's codec hot loop (compress8_test.cpp:152-198 and friends) scans
 candidate patches one at a time with get_submatrix + dist — O(tiles * R^2 *
-W^2 / 64) scalar XOR/popcount.  The TPU formulation: Hamming distance to a
+W^2 / 64) scalar XOR/popcount.  The device formulation: Hamming distance to a
 0/1 patch is an affine function of a cross-correlation,
 
     d(y, x) = |P| + boxsum(I)(y, x) - 2 * (I \\star P)(y, x),
 
 so ALL candidate distances for ALL tiles are one grouped convolution
-(per-tile kernels) that rides the MXU.  Selection then reproduces the
+(per-tile kernels).  Selection then reproduces the
 reference's serial scan semantics exactly — first-hit early exit at
 threshold T, strict-< argmin tie-break in scan order — as a masked reduction
 with a lexicographic (distance, scan-order) key.
@@ -42,7 +42,7 @@ def tile_origins(rows: int, cols: int, W: int):
 def window_distance_maps(img_dense, i0, j0, W: int, R: int):
     """Distances from each tile to every candidate in its search window.
 
-    img_dense: 0/1 [H, Wd] (any float/int dtype; cast to bf16 for the MXU).
+    img_dense: 0/1 [H, Wd] (any float/int dtype; cast to bf16 for the matmul).
     i0, j0: int32 [T] tile origins.  Returns (d, oy, ox) with
     d: int32 [T, R+1, 2R+W+1] distances, candidate (yy, xx) at absolute
     position (oy[t] + yy, ox[t] + xx); entries beyond the image are garbage
@@ -184,12 +184,12 @@ def select_best(d, key, T_thresh: int, M: int, invert: bool,
 
 def window_distance_maps_banded(img_dense, i0, j0, W: int, R: int,
                                 ny: int, nx: int):
-    """Row-band MXU search: one [nx, W^2] x [W^2, band] matmul per tile-row.
+    """Row-band matmul search: one [nx, W^2] x [W^2, band] matmul per tile-row.
 
     For the tiles of one grid row (fixed i0), every candidate lies in the
     row band [max(i0-R,0), i0] x [0, cols-W].  lax.scan over the ny tile
     rows keeps the graph small (one banded matmul compiled once), each step
-    a genuine MXU contraction over the W^2 patch dimension — unlike the
+    a genuine contraction over the W^2 patch dimension — unlike the
     grouped conv, which lowers to depthwise VPU work.  Output matches
     window_distance_maps' contract.
     """

@@ -22,7 +22,7 @@ def exclusive_offsets(mesh: Mesh, axis: str, nbits):
     """Exclusive prefix-sum of per-shard bit counts over a mesh axis.
 
     nbits: per-shard scalar (replicated shape under shard_map).  Uses the
-    all-device count vector (all_gather is a cheap [n] vector over ICI) and
+    all-device count vector (all_gather is a cheap [n] vector) and
     a masked sum — O(n) work, one collective."""
     n = mesh.shape[axis]
 

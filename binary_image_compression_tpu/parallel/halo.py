@@ -3,7 +3,7 @@
 The MED residual at row r needs row r-1 (pred.cpp:6-14); sharding an image's
 rows across devices therefore needs a 1-row halo from the up-neighbor, and
 the windowed search needs an R+W-row halo.  Implemented with shard_map +
-lax.ppermute over the ``data`` ICI axis — the reference has no analog (its
+lax.ppermute over the ``data`` axis — the reference has no analog (its
 only parallelism is shared-memory threads, SURVEY.md §2.10)."""
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Device meshes and sharded training/encode steps.
 
 The reference's only parallelism is OpenMP threads (SURVEY.md §2.10); the
-TPU-native equivalents built here:
+device-mesh equivalents built here:
 
 * **data parallelism** — patch rows (BSVD samples) / pages sharded on the
   ``data`` mesh axis: the reference's ``#pragma omp parallel for`` over
@@ -9,7 +9,7 @@ TPU-native equivalents built here:
   psum for the change counts.
 * **model ("tensor") parallelism** — dictionary atoms sharded on ``model``:
   the [N,K] distance matmul is column-parallel; argmin over K makes XLA
-  all-gather along ``model`` over ICI.
+  all-gather along ``model``.
 * **spatial parallelism** — image tile-rows sharded on ``data`` with halo
   exchange for causal context (parallel/halo.py), the reference's implicit
   raster "sequence" dimension (SURVEY.md §5 long-context note).
@@ -53,7 +53,7 @@ def sharded_train_step(mesh: Mesh):
 
     GSPMD partitions the [N_shard, K] distance matmul column-wise over
     ``model`` and row-wise over ``data``; the argmin over K and the
-    majority-vote counts produce the all-gather / psum collectives over ICI
+    majority-vote counts produce the all-gather / psum collectives
     automatically — the idiomatic pjit formulation (SURVEY.md §7 shard)."""
     from ..models import bsvd
 
@@ -82,10 +82,10 @@ def sharded_encode_analyze(mesh: Mesh, W: int, R: int, T_thresh: int,
     evenly by the ``data`` axis size.
 
     shard_map (not with_sharding_constraint + vmap): GSPMD cannot propagate
-    a partition through the fused-search pallas_call's operands, so the
-    constraint formulation all-gathered the per-page band planes across the
-    batch before slicing each device's page back out — pure ICI waste on a
-    workload with zero cross-page dependence.  Under shard_map each device
+    a partition through the search's per-page band planes, so the constraint
+    formulation all-gathered the per-page band planes across the batch
+    before slicing each device's page back out — pure interconnect waste on
+    a workload with zero cross-page dependence.  Under shard_map each device
     traces its own per-page program and the compiled HLO carries NO
     collectives at all (asserted by tests/test_scaling.py via
     parallel/scaling.py's HLO accounting)."""
@@ -104,8 +104,6 @@ def sharded_encode_analyze(mesh: Mesh, W: int, R: int, T_thresh: int,
                      weights4=P("data", None, None),
                      idx_len=P("data", None),
                      residual4=P("data", None, None, None))
-    # check_vma=False: the pallas kernels inside the body cannot declare
-    # their varying-across-mesh axes (same limitation as parallel/tileshard)
     return jax.jit(shard_map(body, mesh=mesh,
                              in_specs=P("data", None, None),
-                             out_specs=out_specs, check_vma=False))
+                             out_specs=out_specs))

@@ -1,12 +1,12 @@
 """Multi-host pod-slice support (BASELINE.json config #5).
 
 The reference has no distributed anything (SURVEY.md §2.10).  Here:
-jax.distributed initialization, a (hosts=DCN, chips=ICI) mesh layout so
-page-level data parallelism rides DCN while tile/atom parallelism stays on
-ICI, and the corpus encode driver that shards pages by host, encodes each
+jax.distributed initialization, a (hosts, devices) mesh layout so
+page-level data parallelism spans hosts while tile/atom parallelism stays
+within a host, and the corpus encode driver that shards pages by host, encodes each
 host's shard with the device mesh, and merges per-host bitstream offsets
 (all_gather of per-page byte counts — a [pages] vector — then local
-concatenation; no page payload ever crosses DCN twice).
+concatenation; no page payload ever crosses hosts twice).
 
 Testable single-host: `make_pod_mesh` degrades to the local mesh, and the
 page-shard arithmetic is pure (tests/test_aux.py).  Real 2-process
@@ -28,7 +28,7 @@ def init_distributed(coordinator: str | None = None,
     """Bring up jax.distributed for a multi-process run.
 
     Resolution order: explicit args > BIC_COORDINATOR/BIC_NUM_PROCESSES/
-    BIC_PROCESS_ID environment > no-op (single process).  On a real TPU pod
+    BIC_PROCESS_ID environment > no-op (single process).  On a real cluster
     slice the runtime usually initializes the coordination service itself
     (process_count() > 1 already) and this returns immediately.  Exercised
     for real by tests/test_multihost_2proc.py (2 CPU processes over a local
@@ -51,10 +51,11 @@ def init_distributed(coordinator: str | None = None,
 
 
 def make_pod_mesh(model: int = 1) -> Mesh:
-    """(hosts, data, model) mesh: hosts maps to DCN, data/model to ICI.
+    """(hosts, data, model) mesh: hosts maps to the network between hosts, data/model to
+    the devices of one host.
 
     Axis order puts `hosts` outermost so GSPMD keeps cross-host collectives
-    on the hosts axis only (page-parallel work never all-gathers over DCN).
+    on the hosts axis only (page-parallel work never all-gathers across hosts).
     Single-process: hosts axis has size 1 and the mesh is purely local."""
     devs = np.array(jax.devices())
     nproc = jax.process_count()

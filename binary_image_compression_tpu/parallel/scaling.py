@@ -1,37 +1,21 @@
-"""Algorithmic scaling evidence from compiled sharded HLO (no hardware run).
+"""Per-device work and collective traffic counted in compiled sharded HLO.
 
-This environment has ONE physical TPU chip, so multi-chip scaling cannot be
-*measured*; and a virtual 8-device CPU mesh on a 2-core host cannot show
-weak scaling in wall clock (8x the work on 2 cores — the round-3 numbers
-that measured host-core contention, not the algorithm).  What the virtual
-mesh CAN give exactly is the partitioned program itself: XLA compiles the
-same SPMD module it would run per chip, so
+XLA compiles the same SPMD module for a virtual CPU mesh
+(--xla_force_host_platform_device_count) as it would run per device, so
+without any accelerator
 
   * ``compiled.cost_analysis()`` counts the PER-DEVICE flops / bytes of the
-    partitioned module (verified: doubling the mesh with the per-device
-    problem fixed keeps the counts constant), and
+    partitioned module (doubling the mesh with the per-device problem fixed
+    keeps the counts constant), and
   * the optimized HLO text names every collective with its shape and
-    replica groups, from which per-device ICI traffic follows from the
+    replica groups, from which per-device traffic follows from the
     standard ring-algorithm byte counts.
 
-From counted work + counted communication, a roofline + comm model yields
-the weak-scaling efficiency each sharded program achieves on real v5e
-hardware parameters:
+These are counts of what each sharded program moves and computes, not
+times: how long a device takes for them is measured on the device.
 
-  t(n) = max(flops_pd / F_vpu, bytes_pd / B_hbm) + ici_pd(n) / B_ici
-  eff(n) = t(1) / t(n)
-
-The reference has no distributed anything to compare against (SURVEY.md
-§2.10); the referent for the data-parallel axis is the OpenMP sample loop
-(/root/reference/src/bsvd.cpp:1057) these programs generalize.
-
-Caveats, stated rather than hidden:
-  * flops inside lax.while bodies are counted once per body (XLA's static
-    HLO cost model); identical treatment at every n, so ratios hold.
-  * the model assumes no compute/communication overlap (conservative) and
-    ring collectives on a 1-D ICI axis.
-  * CPU-backend op mix differs from TPU Mosaic kernels in constants, not
-    in how the work and the collectives scale with n.
+Caveat: flops inside lax.while bodies are counted once per body (XLA's
+static HLO cost model).
 """
 
 from __future__ import annotations
@@ -41,25 +25,6 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
-
-# ---------------------------------------------------------------------------
-# v5e hardware parameters (same constants as utils/roofline.py)
-# ---------------------------------------------------------------------------
-V5E = dict(
-    # VPU: 8x128 lanes x 4 ALUs @ ~0.94 GHz — integer lane-ops/s.  The
-    # codec work is int32/uint32 VPU arithmetic; XLA's "flops" counter
-    # counts those elementwise ops.
-    flops_per_s=3.85e12,
-    hbm_bytes_per_s=8.19e11,     # v5e HBM ~819 GB/s
-    # ICI: one-way per-link bandwidth ~45 GB/s (scaling-book figure); a
-    # ring on one mesh axis streams through one link per direction.
-    ici_bytes_per_s=4.5e10,
-    # DCN: per-host data-center network, ~25 GB/s effective (scaling-book
-    # multi-pod figure).  A collective whose replica group spans hosts is
-    # bottlenecked by its DCN hops — its ring bytes are charged at this
-    # bandwidth instead of ICI's.
-    dcn_bytes_per_s=2.5e10,
-)
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
@@ -114,7 +79,7 @@ def _crosses_hosts(line: str, devices_per_host: int) -> bool:
         return False
     groups = _groups_members(line)
     if groups is None:
-        return True  # iota form over all devices: conservatively DCN
+        return True  # iota form over all devices: conservatively cross-host
     for grp in groups:
         hosts = {m // devices_per_host for m in grp}
         if len(hosts) > 1:
@@ -124,12 +89,11 @@ def _crosses_hosts(line: str, devices_per_host: int) -> bool:
 
 def collective_traffic(hlo_text: str, n_devices: int,
                        devices_per_host: int = 0) -> dict:
-    """Per-device ICI bytes by collective kind, ring-algorithm model.
+    """Per-device collective bytes by kind, ring-algorithm model.
 
-    devices_per_host > 0 enables the DCN split (VERDICT r4 item 6): a
-    collective whose replica group spans hosts is bottlenecked by its DCN
-    hops, so its ring bytes land in ``dcn_total`` (charged at the DCN
-    bandwidth by DevCost.model_seconds) instead of the ICI total.
+    devices_per_host > 0 splits off the host-spanning collectives: one whose
+    replica group spans hosts crosses the network between hosts, so its
+    ring bytes land in ``dcn_total`` instead of the per-kind totals.
 
     For result bytes S and replica-group size g:
       all-gather       S (gathered shape) -> each device moves S*(g-1)/g
@@ -184,17 +148,6 @@ class DevCost:
     ici_bytes: float
     collectives: dict
     dcn_bytes: float = 0.0
-
-    def model_seconds(self, hw=V5E, work_scale: float = 1.0) -> float:
-        """work_scale multiplies the counted compute (flops AND bytes) —
-        the sensitivity knob for the lax.while caveat (bodies are counted
-        once by XLA's static model; scaling them up shows whether the
-        efficiency conclusion survives the undercount, VERDICT r4 item 8)."""
-        compute = max(self.flops * work_scale / hw["flops_per_s"],
-                      self.bytes_accessed * work_scale
-                      / hw["hbm_bytes_per_s"])
-        return (compute + self.ici_bytes / hw["ici_bytes_per_s"]
-                + self.dcn_bytes / hw["dcn_bytes_per_s"])
 
 
 def compiled_cost(jitted, args, n_devices: int,
@@ -257,13 +210,13 @@ def case_corpus_merge(n: int, *, hosts: int = 1, rows: int = 512,
                       cols: int = 512, W: int = 16, R: int = 128):
     """Page-sharded corpus encode + device bit-offset merge on a
     (hosts, data) mesh — the multi-host BASELINE config (#5) as a compiled
-    program (VERDICT r4 item 6).
+    program.
 
     One page per device (weak scaling over hosts, data width fixed); the
     only cross-device dependence is the exclusive bitstream-offset scan
     (parallel/bitmerge.exclusive_offsets): an all_gather of per-device bit
     counts over BOTH axes, whose replica group spans hosts — exactly the
-    [pages]-vector DCN gather the real driver does
+    [pages]-vector cross-host gather the real driver does
     (multihost.encode_corpus_sharded + merge_host_offsets)."""
     import numpy as _np
     from jax import shard_map
@@ -281,7 +234,7 @@ def case_corpus_merge(n: int, *, hosts: int = 1, rows: int = 512,
         # the enumerative payload; the collective structure is what the
         # model counts)
         nbits = o["weights4"].min(axis=-1).sum().astype(jnp.uint32)
-        allc = lax.all_gather(nbits, ("hosts", "data"))       # crosses DCN
+        allc = lax.all_gather(nbits, ("hosts", "data"))  # crosses hosts
         idx = (lax.axis_index("hosts") * data + lax.axis_index("data"))
         off = (allc * (jnp.arange(n) < idx)).sum(dtype=jnp.uint32)
         return off[None], o["rank"], o["weights4"]
@@ -289,75 +242,10 @@ def case_corpus_merge(n: int, *, hosts: int = 1, rows: int = 512,
     fn = jax.jit(shard_map(
         body, mesh=m, in_specs=P(("hosts", "data"), None, None),
         out_specs=(P(("hosts", "data")), P(("hosts", "data"), None),
-                   P(("hosts", "data"), None, None)), check_vma=False))
+                   P(("hosts", "data"), None, None))))
     pages = jax.ShapeDtypeStruct((n, rows, cols), jnp.int8)
     return fn, (pages,)
 
 
 CASES = {"pageshard": case_pageshard, "tileshard": case_tileshard,
          "bsvd": case_bsvd}
-
-
-def weak_scaling_report(case_fn, ns=(1, 2, 4, 8), hw=V5E,
-                        work_scale: float = 1.0, **kw) -> dict:
-    """Efficiency eff(n) = t_model(1) / t_model(n) with per-device work and
-    counted collective bytes; weak scaling (per-device problem fixed).
-    work_scale multiplies counted compute — the lax.while sensitivity knob
-    (see DevCost.model_seconds)."""
-    costs = {n: compiled_cost(*case_fn(n, **kw), n_devices=n) for n in ns}
-    t1 = costs[ns[0]].model_seconds(hw, work_scale)
-    rep = {}
-    for n in ns:
-        c = costs[n]
-        rep[n] = dict(
-            eff=round(t1 / c.model_seconds(hw, work_scale), 4),
-            flops_per_dev=c.flops,
-            bytes_per_dev=c.bytes_accessed,
-            ici_bytes_per_dev=round(c.ici_bytes, 1),
-            n_collectives=c.collectives["count"],
-        )
-    return rep
-
-
-def multihost_report(hosts_list=(1, 2, 4), data: int = 2, hw=V5E,
-                     **kw) -> dict:
-    """Weak scaling over the HOSTS axis (data width per host fixed): the
-    corpus-merge program compiled at n = hosts*data devices, DCN-crossing
-    collective bytes charged at dcn_bytes_per_s.  eff(h) = t(1 host)/t(h)."""
-    costs = {}
-    for h in hosts_list:
-        n = h * data
-        fn, args = case_corpus_merge(n, hosts=h, **kw)
-        costs[h] = compiled_cost(fn, args, n_devices=n,
-                                 devices_per_host=data)
-    t1 = costs[hosts_list[0]].model_seconds(hw)
-    rep = {}
-    for h in hosts_list:
-        c = costs[h]
-        rep[h] = dict(eff=round(t1 / c.model_seconds(hw), 4),
-                      dcn_bytes_per_dev=round(c.dcn_bytes, 1),
-                      ici_bytes_per_dev=round(c.ici_bytes, 1),
-                      n_collectives=c.collectives["count"])
-    return rep
-
-
-def suite(ns=(1, 2, 4, 8), shapes: dict | None = None) -> dict:
-    """All three sharded programs + the aggregate per-n minimum, the
-    hosts-axis (DCN) corpus case, and the bsvd while-body sensitivity
-    band (VERDICT r4 items 6 and 8)."""
-    shapes = shapes or {}
-    out = {name: weak_scaling_report(fn, ns, **shapes.get(name, {}))
-           for name, fn in CASES.items()}
-    out["algorithmic_eff"] = {
-        n: round(min(out[name][n]["eff"] for name in CASES), 4)
-        for n in ns}
-    out["multihost"] = multihost_report()
-    nmax = max(ns)
-    # sensitivity needs no recompilation: work_scale only enters the model
-    sc = {n: compiled_cost(*case_bsvd(n, **shapes.get("bsvd", {})),
-                           n_devices=n) for n in (1, nmax)}
-    out["bsvd_eff_sensitivity"] = {
-        f"x{m}": round(sc[1].model_seconds(V5E, m)
-                       / sc[nmax].model_seconds(V5E, m), 4)
-        for m in (1, 2, 10)}
-    return out

@@ -1,11 +1,11 @@
 """Tile-row sharding of ONE image's windowed-search analysis across devices.
 
 The reference's only parallelism is OpenMP threads over samples
-(bsvd.cpp:1057); its codecs are strictly serial.  This module is the TPU
+(bsvd.cpp:1057); its codecs are strictly serial.  This module is the
 spatial ("context") parallelism for the causal-original codec mode: the tile
 grid is sharded by tile ROWS over the mesh's ``data`` axis, and each shard
 pulls the R-row causal context above its block from its up-neighbors with
-lax.ppermute over ICI — the halo-exchange plan of SURVEY.md §2.10 applied to
+lax.ppermute — the halo-exchange plan of SURVEY.md §2.10 applied to
 the raster causality contract of the reference search
 (/root/reference/src/compress8_test.cpp:137-143, pred.cpp:6-14).
 
@@ -63,18 +63,14 @@ def _analyze_shard(block, *, n: int, W: int, R: int, T_thresh: int,
     # and patch gathers stay ext-frame-relative.  Ext rows above the image
     # (the zero halo of the top shards) land at negative absolute y and are
     # masked off by the key grids.
-    from ..ops import pallas_kernels
-    if pallas_kernels.fused_supported(ny_loc, nx, W, R):
-        if 32 % W == 0:
-            sel, oy_rel, ox, plane = pallas_kernels.fused_search_select(
-                ext, i0_rel, j0, ny_loc, nx, W=W, R=R, T_thresh=T_thresh,
-                rows=rows, cols=cols, invert=invert, y_base=base - R,
-                with_plane=True)
-            return compress._finish_selection_fields(
-                plane, sel, (i0_rel, j0, oy_rel, ox), W=W, invert=invert)
-        sel, oy_rel, ox = pallas_kernels.fused_search_select(
+    from ..ops import fused_search
+    if fused_search.fused_supported(W, R, cols):
+        sel, oy_rel, ox, plane = fused_search.search_select(
             ext, i0_rel, j0, ny_loc, nx, W=W, R=R, T_thresh=T_thresh,
             rows=rows, cols=cols, invert=invert, y_base=base - R)
+        if 32 % W == 0 and W * W >= 32:
+            return compress._finish_selection_fields(
+                plane, sel, (i0_rel, j0, oy_rel, ox), W=W, invert=invert)
         return compress._finish_selection(ext, sel, (i0_rel, j0, oy_rel, ox),
                                           W=W, invert=invert)
     i0_abs = i0_rel + base - R
@@ -124,10 +120,8 @@ def _sharded_fn(mesh, n, W, R, T_thresh, rows, cols, gw, block_rows,
     out_specs = dict(rank=P("data"), n_cands=P("data"), inv=P("data"),
                      has_cands=P("data"), weights4=P("data", None),
                      idx_len=P("data"), residual4=P("data", None, None))
-    # check_vma=False: the pallas selection kernel inside the shard body
-    # cannot declare its varying-across-mesh axes (jax 0.9 limitation)
     return jax.jit(shard_map(fn, mesh=mesh, in_specs=P("data", None),
-                             out_specs=out_specs, check_vma=False))
+                             out_specs=out_specs))
 
 
 def encode_tile_sharded(mesh: Mesh, img: np.ndarray, params=None) -> bytes:

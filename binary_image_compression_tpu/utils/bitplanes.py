@@ -1,4 +1,4 @@
-"""Grayscale <-> bitplane decomposition (TPU-vectorized bitplane_tool path).
+"""Grayscale <-> bitplane decomposition (device-vectorized bitplane_tool path).
 
 Replaces the two reference CLI tools as library functions:
   * bitplane_tool.cpp:24-39 — PGM -> one PBM per bitplane (mask b <<= 1 while

@@ -7,7 +7,7 @@ standard 48-bit LCG x <- (a*x + 11) mod 2^48 with a = 0x5DEECE66D, seeded as
 GSL does (x0 = 0x330E, x1 = seed & 0xFFFF, x2 = seed >> 16), `get` returning
 the top 32 bits, and GSL's uniform_int scaling-with-rejection.
 
-This is host-side (Python int) — BSVD init runs once per model; the TPU
+This is host-side (Python int) — BSVD init runs once per model; the device
 fast path uses jax.random instead (models/bsvd.py, parity=False).
 """
 

@@ -1,5 +1,5 @@
 // Native runtime for the BIC1 bitstream: tile-record packing (encoder tail)
-// and the full windowed-codec decoder.  The TPU does the search/analysis
+// and the full windowed-codec decoder.  The device does the search/analysis
 // (models/compress.py); this code is the serial bit-twiddling the reference
 // left unfinished (its decoders are dead code) — Golomb-Rice with the
 // reference's adaptive k (GolombCoder.cpp:29-33), exact enumerative
@@ -1068,7 +1068,7 @@ long bic_encode_windowed(const uint8_t* img, const uint8_t* header,
 // into horizontal stripes that are coded as fully INDEPENDENT arithmetic
 // streams (template reads above the stripe top return 0, each stripe's
 // model starts fresh), so encode and decode parallelize across host cores
-// and the per-pixel context ids can be computed on the TPU for the whole
+// and the per-pixel context ids can be computed on device for the whole
 // page at once (models/compress.scab_ctx_map) — the encoder then does only
 // the serial range-coder update per pixel.
 //
@@ -1217,7 +1217,7 @@ static void decode_stripe(const uint8_t* stream, long slen,
 
 // --- payload mode 2: static-table interleaved rANS (device-assembled) ----
 // Twin of ops/ransdevice.py + models/codec._decode_scab_rans: the encoder
-// is the TPU jit (semi-adaptive per-context table + N interleaved rANS
+// is the device jit (semi-adaptive per-context table + N interleaved rANS
 // lanes, 32-bit state / 16-bit renorm / 12-bit freqs); this is the serial
 // host decoder, parallel across stripes.
 
@@ -1285,7 +1285,7 @@ extern "C" {
 // Encode a 0/1 image as a codec-13 payload (no BIC1 header).  tmpl in
 // {10, 12}; n_stripes >= 1 (clamped to rows); ramp 0/1; ctx_pre nullable
 // uint16[rows*cols] precomputed contexts (must match the incremental scan
-// — the TPU path, tested).  Returns payload length or -1.
+// — the device path, tested).  Returns payload length or -1.
 long bic_scab_encode(const uint8_t* img, int rows, int cols, int tmpl,
                      int n_stripes, int ramp, const uint16_t* ctx_pre,
                      uint8_t* out, long cap) {

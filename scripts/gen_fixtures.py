@@ -10,19 +10,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from binary_image_compression_tpu.utils import pnm  # noqa: E402
+from binary_image_compression_tpu.utils.synth import doc_image  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "fixtures")
-
-
-def doc_image(rng, rows, cols, nglyphs=24, gh=10, gw=7, fill=0.35):
-    """Text-document-like binary image: random glyph set stamped on a grid."""
-    glyphs = rng.rand(nglyphs, gh, gw) < fill
-    img = np.zeros((rows, cols), dtype=bool)
-    for y in range(2, rows - gh - 1, gh + 3):
-        for x in range(2, cols - gw - 1, gw + 2):
-            if rng.rand() < 0.85:  # word spacing
-                img[y:y + gh, x:x + gw] = glyphs[rng.randint(nglyphs)]
-    return img
 
 
 def main():

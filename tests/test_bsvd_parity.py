@@ -1,5 +1,5 @@
 """BSVD golden conformance: learned D/A/E byte-identical with the compiled
-reference (same rand48 stream, same update order), plus TPU-path sanity."""
+reference (same rand48 stream, same update order), plus device-path sanity."""
 
 import hashlib
 import io

@@ -81,16 +81,6 @@ def test_update_coefficients_exact(rng):
     np.testing.assert_array_equal(np.asarray(Aj).astype(bool), A_ref)
 
 
-def test_update_coefficients_packed_matches_mxu(rng):
-    X, E, D, A = _common_state(rng, m=96)
-    args = (jnp.asarray(E, jnp.int8), jnp.asarray(D, jnp.int8),
-            jnp.asarray(A, jnp.int8))
-    Em, Am, _ = bsvd.update_coefficients(*args, distances="mxu")
-    Ep, Ap, _ = bsvd.update_coefficients(*args, distances="packed")
-    np.testing.assert_array_equal(np.asarray(Em), np.asarray(Ep))
-    np.testing.assert_array_equal(np.asarray(Am), np.asarray(Ap))
-
-
 def test_update_coefficients_gram_matches_mxu(rng):
     # the Gram/cross-carry pursuit (the reference's broken
     # update_coefficients_fast, bsvd.cpp:1116-1213, done correctly over

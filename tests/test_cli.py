@@ -110,8 +110,8 @@ def test_tpu_encoders_reject_bad_W():
             compress.encode(img, codec.CodecParams(codec=8, W=W,
                                                    strict=False))
         with _pytest.raises(ValueError, match="out of range"):
-            compress.encode_strict(img, codec.CodecParams(codec=8, W=W,
-                                                          strict=True))
+            compress.encode_batch(img[None], codec.CodecParams(
+                codec=8, W=W, strict=False))
 
 
 def test_cli_shard_tiles_stream_parity(tmp_path):

@@ -335,7 +335,7 @@ def test_scab_python_twin_matches_native():
 
 
 def test_scab_device_ctx_matches_incremental():
-    """The TPU context map (shifted planes, stripe-top masking) must yield
+    """The device context map (shifted planes, stripe-top masking) must yield
     byte-identical streams to the host incremental scan."""
     from binary_image_compression_tpu.models import compress
     for name, T in [("text64.pbm", 2), ("ragged75x101.pbm", 3)]:

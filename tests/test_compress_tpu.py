@@ -1,5 +1,5 @@
-"""TPU encoder path: byte-identical streams vs the host reference encoder,
-and sharded-step correctness on the virtual CPU mesh."""
+"""Device encoder path: byte-identical streams vs the host reference
+encoder, and sharded-step correctness on the virtual CPU mesh."""
 
 import os
 
@@ -17,14 +17,16 @@ FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 
 @pytest.mark.parametrize("image,W,R", [("text64.pbm", 8, 32),
                                        ("text256.pbm", 16, 64),
-                                       ("ragged75x101.pbm", 8, 16)])
+                                       ("ragged75x101.pbm", 8, 16),
+                                       ("text64.pbm", 4, 8),
+                                       ("ragged75x101.pbm", 32, 40)])
 def test_tpu_encoder_matches_host(image, W, R):
     img = pnm.read_pbm(os.path.join(FIX, image))
     p = codec.CodecParams(codec=8, W=W, R=R, strict=False)
     host = codec.encode(img, p)
-    tpu = compress.encode(img, p)
-    assert host == tpu
-    np.testing.assert_array_equal(codec.decode(tpu), img)
+    dev = compress.encode(img, p)
+    assert host == dev
+    np.testing.assert_array_equal(codec.decode(dev), img)
 
 
 def test_bsvd_learn_reduces_residual():
@@ -95,9 +97,28 @@ def test_bitmerge_matches_bitwriter(rng):
 @pytest.mark.parametrize("image,W,R", [("text64.pbm", 8, 32),
                                        ("ragged75x101.pbm", 8, 16)])
 def test_strict_scan_encoder_matches_host(image, W, R):
+    """The lax.scan strict-mode analysis (compress.encode_analyze_strict),
+    packed by the native record packer, equals the host strict encoder."""
+    from binary_image_compression_tpu import native
+    if native.get_lib() is None:
+        pytest.skip("no native lib")
     img = pnm.read_pbm(os.path.join(FIX, image))
     p = codec.CodecParams(codec=8, W=W, R=R, strict=True)
-    assert compress.encode_strict(img, p) == codec.encode(img, p)
+    rows, cols = img.shape
+    ny, nx = -(-rows // W), -(-cols // W)
+    grid = np.zeros((ny * W, nx * W), np.int8)
+    grid[:rows, :cols] = img
+    out = jax.device_get(compress.encode_analyze_strict(
+        jnp.asarray(grid), W=W, R=R, T_thresh=p.resolved_T(), rows=rows,
+        cols=cols))
+    M = W * W
+    match = out["mode"] < 2
+    blob = native.pack_tiles(
+        codec._header(p, rows, cols, codec.image_crc(img)), M, out["mode"],
+        np.where(match, out["inv"], False), out["rank"].astype(np.int64),
+        np.where(match, out["idx_len"], 0), out["weight"],
+        bitpack.np_unpack(out["residual"], M).astype(np.uint8))
+    assert blob == codec.encode(img, p)
 
 
 def test_encode_batch_matches_single():
@@ -120,20 +141,20 @@ def test_tpu_matches_host_doc512():
     """Full-scale byte parity on the bench fixture (W=16, R=128, 1024
     tiles).  Round 1's grouped-conv analysis was silently miscompiled by
     XLA CPU at this scale — streams decoded fine but ran ~30% larger than
-    the host encoder's.  The banded MXU kernel must match exactly."""
+    the host encoder's.  The device analysis must match exactly."""
     fix = os.path.join(FIX, "doc512.pbm")
     if not os.path.exists(fix):
         pytest.skip("doc512 fixture not generated")
     img = pnm.read_pbm(fix)
     p = codec.CodecParams(codec=8, W=16, R=128, strict=False)
-    tpu = compress.encode(img, p)
-    assert tpu == codec.encode(img, p)
-    np.testing.assert_array_equal(codec.decode(tpu), img)
+    dev = compress.encode(img, p)
+    assert dev == codec.encode(img, p)
+    np.testing.assert_array_equal(codec.decode(dev), img)
 
 
 def test_encode_batch_vmapped_matches_loop():
-    """vmap over the fused Pallas analysis (Mosaic lifts the batch into a
-    leading grid dim) must produce the same streams as the loop mode."""
+    """vmap over the analysis must produce the same streams as the loop
+    mode."""
     img = pnm.read_pbm(os.path.join(FIX, "text64.pbm"))
     pages = np.stack([img, np.roll(img, 3, axis=1), ~img])
     p = codec.CodecParams(codec=8, W=8, R=32, strict=False)
@@ -284,29 +305,31 @@ def test_planes_device_assembly_capacity_ladder(rng):
         np.testing.assert_array_equal(codec.decode(blob), planes[i])
 
 
-def test_decide_modes_kernel_matches_host_replay(rng):
-    """The device mode-decision kernel (ops/pallas_decide) must replay the
-    two adaptive Golomb contexts bit-identically to the host
-    (compress._decide_modes) — including k transitions, ties, and
-    no-candidate tiles."""
-    from binary_image_compression_tpu.ops import pallas_decide
-    from binary_image_compression_tpu.ops.bitstream import enum_nbits
-    M = 64
-    T = 300
-    w4 = rng.randint(0, M + 1, size=(T, 4)).astype(np.int32)
-    hc = rng.rand(T) < 0.8
-    il = rng.randint(1, 12, size=T).astype(np.int32)
-    out = dict(weights4=w4, has_cands=hc, idx_len=il)
-    for cid in (4, 7, 8):
-        mode_h, weight_h, k_h = compress._decide_modes(out, M, cid)
-        enb = jnp.asarray([enum_nbits(M, w) for w in range(M + 1)],
-                          jnp.int32)
-        mode_d, weight_d, k_d = jax.device_get(pallas_decide.decide_modes(
-            jnp.asarray(w4), jnp.asarray(hc), jnp.asarray(il), enb,
-            M=M, codec_id=cid))
-        np.testing.assert_array_equal(mode_d, mode_h)
-        np.testing.assert_array_equal(weight_d, weight_h)
-        np.testing.assert_array_equal(k_d, k_h)
+@pytest.mark.parametrize("cid", [4, 7, 8])
+def test_decide_modes_kernel_matches_host_replay(rng, cid):
+    """The native fused decision + pack (bic_decide_pack, the encoder's
+    only decision path) must replay the two adaptive Golomb contexts
+    bit-identically to the Python replay (compress._decide_modes) —
+    including k transitions, ties, and no-candidate tiles."""
+    from binary_image_compression_tpu import native
+    if native.get_lib() is None:
+        pytest.skip("no native lib")
+    W, T = 8, 300
+    M = W * W
+    out = dict(weights4=rng.randint(0, M + 1, size=(T, 4)).astype(np.int32),
+               has_cands=rng.rand(T) < 0.8,
+               idx_len=rng.randint(1, 12, size=T).astype(np.int32),
+               inv=rng.rand(T) < 0.5,
+               rank=rng.randint(0, 2, size=T).astype(np.int32),
+               residual4=rng.randint(0, 2 ** 32, size=(T, 4, M // 32),
+                                     dtype=np.uint64).astype(np.uint32))
+    # residual weights must match the residual words they describe
+    bits = bitpack.np_unpack(out["residual4"], M)
+    out["weights4"] = bits.sum(axis=-1).astype(np.int32)
+    out["rank"] = np.minimum(out["rank"], (1 << out["idx_len"]) - 1)
+    hdr = codec._header(codec.CodecParams(codec=cid, W=W, R=16), 8, 8, 0)
+    assert compress._assemble(out, hdr, M, T, cid) == \
+        compress._assemble_python(out, hdr, M, T, cid)
 
 
 def test_encode_pgm_device_assembly_backend():

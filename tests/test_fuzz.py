@@ -67,7 +67,7 @@ def test_fuzz_pgm(rng):
 
 
 def test_fuzz_fused_kernel_matches_host():
-    """Fused-Pallas analysis == host encoder across awkward geometries:
+    """Device analysis == host encoder across awkward geometries:
     R wider than the image, single-tile rows/cols, ragged edges."""
     import numpy as np
     from binary_image_compression_tpu.models import codec, compress
@@ -78,21 +78,6 @@ def test_fuzz_fused_kernel_matches_host():
         img = rng.rand(rows, cols) < rng.choice([0.1, 0.4])
         for cid in (8, 4):
             p = codec.CodecParams(codec=cid, W=W, R=R, strict=False)
-            tpu = compress.encode(img, p)
-            assert tpu == codec.encode(img, p), (W, R, rows, cols, cid)
-            assert (codec.decode(tpu) == img).all()
-
-
-def test_fuzz_strict_kernel_matches_host():
-    import numpy as np
-    from binary_image_compression_tpu.models import codec, compress
-    from binary_image_compression_tpu.ops import pallas_strict
-    rng = np.random.RandomState(13)
-    for W, R, rows, cols in [(8, 8, 30, 30), (8, 16, 25, 70),
-                             (16, 32, 40, 40), (8, 64, 48, 20)]:
-        assert pallas_strict.supported(W, R)
-        img = rng.rand(rows, cols) < 0.3
-        p = codec.CodecParams(codec=8, W=W, R=R, strict=True)
-        tpu = compress.encode_strict(img, p)
-        assert tpu == codec.encode(img, p), (W, R, rows, cols)
-        assert (codec.decode(tpu) == img).all()
+            dev = compress.encode(img, p)
+            assert dev == codec.encode(img, p), (W, R, rows, cols, cid)
+            assert (codec.decode(dev) == img).all()
